@@ -1,14 +1,13 @@
 """Per-mode documentation (reference: mode_help.cpp serves docs/*.txt;
 the content here is written for THIS framework — same flag surface, plus
-the TPU-specific controls)."""
+its device controls)."""
 from __future__ import annotations
 
 _SKETCHING = """\
 SKETCHING (database fingerprinting)
 
-    -kmerlen <k>      number of nucleotides per k-mer (default 16).
-                      k > 16 is not supported by this build (64-bit
-                      features); the command fails with a clear error.
+    -kmerlen <k>      number of nucleotides per k-mer (default 16, at
+                      most 32); k > 16 uses 64-bit features.
     -sketchlen <s>    number of features (min-hashed k-mers) per
                       window sketch (default 16).
     -winlen <w>       number of nucleotides per window (default 127).
@@ -242,10 +241,13 @@ I/O
 
 ENVIRONMENT
 
-    MC_JAX_PLATFORM=cpu     force the CPU backend.
+    JAX_PLATFORMS=cpu       run on the CPU (default: an NVIDIA GPU is
+                            required).
+    JAX_COMPILATION_CACHE_DIR=<dir>
+                            persistent compile cache (default:
+                            .jax_cache in the checkout).
     MC_SCAN_K=<k>           batches fused per device dispatch on the
                             summary-only fast path (default 8).
-    MC_GOLDEN_TPU=1         run the golden test suite on the real chip.
     MC_NATIVE=0             disable the native C++ reader fast paths.
     MC_DEVICE_LAYOUT=0      stage probe layouts on the host instead of
                             building them on device.
@@ -254,7 +256,7 @@ ENVIRONMENT
     MC_CLASSED=<0|1>        size-classed head layout: 0 never, 1 always.
                             Unset = auto: uniform two-tier heads when
                             the memory budget allows a full 61-slot
-                            head (~12% faster probes), size-classed
+                            head (simpler probes), size-classed
                             cells when the budget would otherwise pinch
                             the head (deeper heads + ~2.4x capacity for
                             the same bytes).
@@ -262,24 +264,14 @@ ENVIRONMENT
                             (every read pays worst-case bucket depth).
     MC_ESC_FUSED=0          run escalation phase 2 as separate redo
                             dispatches instead of inside the phase-1
-                            scan (the fused default interleaves the
-                            redo's sort under phase 1's row gathers,
-                            measured ~5% faster).
+                            scan (the fused default lets the redo's
+                            sort interleave with phase 1's row
+                            gathers).
     MC_ESC_B2=<n>           flagged-read slice width per fused dispatch
                             (default: half the batch size).
     MC_NATIVE_FMT=0         disable the native per-read line formatter
                             (fall back to the Python writer).
     MC_PREFETCH=0           disable the software-pipelined scan.
-    MC_SKETCH_MODE=extract  swap the Pallas sketcher's in-kernel sort
-                            for iterative min-extraction (bit-exact).
-    MC_SPLIT_CAND=<0|1>     run the candidates sort as its own kernel
-                            (default: on for rows <= 2048 lanes).
-    MC_PROBE_PALLAS=<0|1|list>
-                            Pallas probe-decode kernels: 0 none,
-                            1 all, or a comma list of stages from
-                            bucket,head,full (default on device
-                            backends: head,full — the bucket kernel
-                            measured as a net loss in composed steps).
     MC_BUILD_GBITS=<g>      force 2^g feature-range groups in the
                             bounded-memory device build (default:
                             auto-sized to ~48M elements per group).

@@ -346,7 +346,7 @@ def parse_query_options(a: Args):
     if v:
         opt.num_replicas = int(v)
     # -table-shards N: feature-range database shards over the "table"
-    # mesh axis (TPU extension of the reference's one-DB-part-per-GPU
+    # mesh axis (the counterpart of the reference's one-DB-part-per-GPU
     # distribution); composes with -replicate as the data axis
     v = a.take_value("-table-shards")
     if v:
@@ -555,7 +555,7 @@ def query_mode_docs() -> str:
             "-hits-per-ref [<f>], -out <f>")
 
 
-HELP = f"""metacache_tpu {__version__} — TPU-native metagenomic classifier
+HELP = f"""metacache_tpu {__version__} — GPU metagenomic classifier (JAX/XLA)
 
 USAGE: python -m metacache_tpu <MODE> [OPTION...]
 
@@ -571,8 +571,12 @@ modes:
 
 
 def main(argv: List[str] | None = None) -> int:
-    from ..utils.platform import force_platform
-    force_platform()
+    from ..utils.platform import NoGpuError, force_platform
+    try:
+        force_platform()
+    except NoGpuError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(HELP)

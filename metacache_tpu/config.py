@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native MetaCache framework.
+"""Configuration for the JAX MetaCache framework.
 
 Mirrors the behavioral surface of the reference's compile-time type config
 (reference: src/config.hpp:45-157) and sketching options

@@ -1,7 +1,7 @@
 """Bit-exact scalar/NumPy oracle for DNA 2-bit encoding, canonical k-mers
 and integer mixing hashes.
 
-This module is the *correctness oracle* for the TPU kernels in
+This module is the *correctness oracle* for the device code in
 ``metacache_tpu.ops``: every device kernel must produce identical integer
 results. All functions are vectorized NumPy but keep the exact integer
 semantics of the reference:

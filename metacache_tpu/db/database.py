@@ -1,7 +1,7 @@
 """The database: feature store + taxonomy + sketching metadata.
 
 Re-design of the reference `database` class (src/database.hpp:119-532,
-src/database.cpp:36-375) around the TPU-native CSR feature table:
+src/database.cpp:36-375) around the CSR feature table:
 
 - add_target sketches all windows of a reference sequence (on device, in
   batches) and accumulates (feature, location) pairs;

@@ -20,11 +20,14 @@ _tried = False
 
 
 def _build() -> bool:
+    """Compile the library for this host; concurrent builders each write
+    their own temporary file and the last rename wins."""
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
-               _SRC_FMT, "-o", _SO + ".tmp", "-lz"]
+               _SRC_FMT, "-o", tmp, "-lz"]
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(_SO + ".tmp", _SO)
+        os.replace(tmp, _SO)
         return True
     except Exception as e:  # pragma: no cover - toolchain issues
         print(f"metacache_tpu: native build failed ({e}); "

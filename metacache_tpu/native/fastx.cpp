@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ reader + 2-bit encoder + window extractor.
 //
-// TPU-native counterpart of the reference's C++ I/O stack
+// Counterpart of the reference's C++ I/O stack
 // (sequence_iostream.hpp / sequence_io.cpp: buffered gzip-capable record
 // parser; query_batch.cuh:85-209: host-side read windowing). The Python
 // layer calls these via ctypes; batches land in preallocated NumPy buffers

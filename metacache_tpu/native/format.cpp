@@ -1,7 +1,7 @@
 // Native per-read mapping-line formatter.
 //
 // The per-read output path (-tophits and friends) was bound by Python
-// string assembly (~27 us/read in classify/runner._postprocess_arrays).
+// string assembly (classify/runner._postprocess_arrays).
 // Here the host prep resolves every taxon/candidate to an index into a
 // memoized string table (a metagenomic run touches a few thousand
 // distinct taxa across millions of reads), and this function emits the

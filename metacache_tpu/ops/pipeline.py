@@ -1,7 +1,7 @@
 """Device (JAX/XLA) query pipeline: probe -> gather -> sort -> candidate
 sweep -> top-k -> ranked-LCA classification.
 
-TPU-native re-design of the reference query hot path:
+Device re-design of the reference query hot path:
 
 - CPU: host_hashmap::query_host_hashmap (src/host_hashmap.hpp:629-723),
   matches_sorter k-way merge (src/query_handler.hpp:44-106),
@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .sketch_jax import sketch_windows
+from .stage import stage
 
 I32_MAX = np.int32(2**31 - 1)
 TGT_SENTINEL = I32_MAX  # padding slots sort last within a query
@@ -185,7 +186,7 @@ def _segmented_fill_first(values, is_start):
     """For each element, the `values` entry at the start of its segment.
 
     Segments are delimited by `is_start` flags along the array. Uses a
-    log-depth associative scan — no scatters/gathers (TPU-friendly).
+    log-depth associative scan — no scatters/gathers.
     """
     def combine(a, b):
         av, af = a
@@ -208,8 +209,7 @@ def matches_to_result(qk, tgt, win, max_win_in_range,
     collectively-merged match arrays (qk entries >= num_queries are
     padding and sort to the end).
 
-    TPU note: large data-dependent gathers are near-serial on TPU, so the
-    two-pointer sweep's lower bound is computed by a *rank join* — sort
+    The two-pointer sweep's lower bound is computed by a *rank join* — sort
     the M match keys together with M probe keys (win - range + 1) and
     count originals by prefix sum — and all per-segment reductions use
     sorts + neighbor compares + log-depth scans instead of segment
@@ -314,6 +314,7 @@ def matches_to_result(qk, tgt, win, max_win_in_range,
                        cls_tax, qk, tgt, win)
 
 
+@stage("lca")
 def classify_candidates(cand_tgt, cand_tax, cand_hits, lineages,
                         hits_min, hits_diff_frac, highest_rank, merge_rank):
     """Device ranked-LCA classification (reference: classify,

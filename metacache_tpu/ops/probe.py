@@ -5,15 +5,17 @@ precomputed prefix table of row offsets into the sorted unique-feature
 array: the binary search then only runs inside one small prefix span
 (~log2(F / 2^bits) steps instead of log2(F)). This plays the role of the
 reference's hash-table bucket addressing (open addressing over
-hash(feature), src/hash_multimap.hpp:135-175) for the CSR layout —
-data-dependent gathers are the scarce resource on TPU, so fewer probe
-steps matter more than anything else.
+hash(feature), src/hash_multimap.hpp:135-175) for the CSR layout: every
+search step is one data-dependent gather, so fewer steps mean fewer
+dependent memory round trips per probe.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .stage import stage
 
 DEFAULT_BITS = 20
 
@@ -39,9 +41,7 @@ def make_bucket_index(features: np.ndarray, bits: int | None = None):
     Row h = [start, f_0 .. f_{S-1}]: the sorted features whose top `bits`
     equal h, padded with 0xFFFFFFFF, plus their start offset in the
     feature array. A probe then needs ONE row gather + an in-lane compare
-    instead of a multi-step binary search — on TPU every gather over N
-    probe indices costs the same ~serialization regardless of width, so
-    gather COUNT is the only thing that matters.
+    instead of a multi-step binary search of dependent gathers.
     S is the max bucket span rounded up to a power of two; `bits` defaults
     to ~log2(F) - 2 (avg span ~4) within [12, 24].
     """
@@ -59,7 +59,7 @@ def make_bucket_index(features: np.ndarray, bits: int | None = None):
     s = max(s, 1)
     w = 1 + s
     if w < 64 and nbuckets * 64 * 4 <= (1 << 30):
-        w = 64          # gather fast path needs >= 64 lanes (measured)
+        w = 64          # the logical row width of ops.table_device's index
     rows = np.full((nbuckets, w), -1, np.int32)
     rows[:, 0] = starts.astype(np.int32)
     if nf:
@@ -112,6 +112,7 @@ def make_bucket_index64(features: np.ndarray, bits: int | None = None):
     return rows, bits
 
 
+@stage("bucket_probe")
 def probe_bucket64(flat: jax.Array, bucket_rows: jax.Array, bits: int):
     """u64 variant of probe_bucket: hash = top `bits` of the 64-bit
     feature, in-lane match on the LOW 32 bits (make_bucket_index64
@@ -135,6 +136,7 @@ def probe_bucket64(flat: jax.Array, bucket_rows: jax.Array, bits: int):
     return idx, found
 
 
+@stage("bucket_probe")
 def probe_bucket(flat: jax.Array, bucket_rows: jax.Array, bits: int):
     """-> (idx i32, found bool) via one bucket-row gather + lane match.
 
@@ -144,13 +146,6 @@ def probe_bucket(flat: jax.Array, bucket_rows: jax.Array, bits: int):
     h = (flat >> (32 - bits)).astype(jnp.int32)
     if bucket_rows.shape[1] == 128:
         row2 = bucket_rows[h >> 1]
-        from .probe_pallas import bucket_decode, probe_pallas_enabled
-        if probe_pallas_enabled("bucket"):
-            # one-pass VMEM decode: XLA lowers the 63-lane slice +
-            # half-select below as lane-rotate relayouts (measured
-            # 0.97 ms/131k probes of pure decode on chip; OFF by
-            # default — composed-step A/B measured a net loss)
-            return bucket_decode(row2, h & 1, flat)
         row = jnp.where((h & 1)[:, None] == 1, row2[:, 64:],
                         row2[:, :64])
     else:
@@ -164,6 +159,7 @@ def probe_bucket(flat: jax.Array, bucket_rows: jax.Array, bits: int):
     return idx, found
 
 
+@stage("bucket_probe")
 def probe_bucket_classed(flat: jax.Array, brows: jax.Array, bits: int):
     """Classed bucket-row probe -> (pidx i32, found bool).
 

@@ -5,8 +5,8 @@ array — O(M log^2 M) bitonic passes for M ~ millions. When every query in
 a batch has the same (padded) window count Wq, the match slots form a
 dense (B, L) matrix with L = Wq * sketchlen * slots_per_feature, and every
 stage becomes a *per-row* sort of a few hundred lanes — bitonic depth
-log^2(L) instead of log^2(B*L), fully lane-parallel on the VPU. This is
-the TPU analog of the reference GPU's per-query segmented sort
+log^2(L) instead of log^2(B*L), and every row sorts independently. This
+is the counterpart of the reference GPU's per-query segmented sort
 (bb_segsort, src/query_batch.cu:34-61).
 
 Semantics are identical to ops.pipeline.matches_to_result (verified by the
@@ -23,31 +23,8 @@ import numpy as np
 
 from .sketch_jax import sketch_windows
 from .pipeline import QueryResult, classify_candidates
+from .stage import stage
 
-
-def _sketch_dispatch(codes2d, valid, k, sketchlen, use_pallas):
-    """XLA or Pallas sketcher; the Pallas kernel (lane-bitonic, bit-exact)
-    needs 128-lane windows and row tiles. MC_SKETCH_MODE=extract swaps
-    the in-kernel full sort+compaction for s min-extractions (bit-exact
-    alternative, tests/test_pallas.py) — an on-chip A/B knob."""
-    if not use_pallas:
-        return sketch_windows(codes2d, valid, k=k, sketchlen=sketchlen)
-    import os
-    from .sketch_pallas import (sketch_windows_pallas,
-                                sketch_windows_pallas_long, LANES)
-    n, w = codes2d.shape
-    mode = os.environ.get("MC_SKETCH_MODE", "sort")
-    if w > LANES:
-        # strided-chunk kernel for winlen > 128 (255/511 presets)
-        return sketch_windows_pallas_long(
-            codes2d, valid, k=k, sketchlen=sketchlen,
-            tile=512, mode=mode)
-    if w < LANES:
-        codes2d = jnp.pad(codes2d, ((0, 0), (0, LANES - w)),
-                          constant_values=4)
-    tile = 512 if n % 512 == 0 else n
-    return sketch_windows_pallas(codes2d, valid, k=k, sketchlen=sketchlen,
-                                 tile=tile, mode=mode)
 
 I32_MAX = np.int32(2**31 - 1)
 
@@ -77,28 +54,14 @@ def _meta_match(rows, flat, wide: bool):
     return (rows[:, 0] == flat_i32) & (flat != jnp.uint32(0xFFFFFFFF))
 
 
-def _alt_runs(fused: bool, fast_top2: bool, walk_elems: int,
-              dedup_walk: int, feats_per_query: int, spf: int) -> int:
-    """Run length for alternating-direction probe emission (0 = off):
-    only useful when the fused candidates kernel will run (deep
-    buckets) and only valid when features-per-query is a power of two
-    (the padded row must tile into pow2-aligned runs)."""
-    if not (fused and fast_top2 and (walk_elems or dedup_walk)):
-        return 0
-    if spf <= 64 or feats_per_query & (feats_per_query - 1):
-        return 0
-    return 1 << (spf - 1).bit_length()
-
-
+@stage("candidates")
 def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
                    hits_min, hits_diff_frac, highest_rank, merge_rank,
                    *, max_candidates: int,
                    walk_elems: int = 0,
                    dedup_walk: int = 0,
                    fast_top2: bool = False,
-                   fused_candidates: bool = False,
                    emit_hits: bool = True,
-                   presorted_runs: int = 0,
                    pack_bits: int = 0) -> QueryResult:
     """(B, L) per-query match slots -> candidates + classification.
 
@@ -108,8 +71,7 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
     contains more than ``walk_elems`` sorted match slots (callers bound it
     by max(mwir) * sketchlen * windows_per_query); the range sweep then
     runs as ``walk_elems`` masked lane shifts instead of the two
-    double-width rank-join sorts (profiled 3.7 ms -> sub-ms per
-    8192x192 batch on TPU).
+    double-width rank-join sorts.
 
     ``dedup_walk > 0`` asserts only max(mwir) <= dedup_walk: duplicate
     (tgt, win) slots are first compacted into distinct entries with run
@@ -138,45 +100,6 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
         # keeps the packed sweep's single-compare range test exact:
         # the inter-target gap 2^wbits - maxwin always exceeds mwir - 1
         mwir = jnp.minimum(mwir, jnp.int32(1 << (pack_bits - 1)))
-
-    if (fused_candidates and fast_top2 and kk <= 4
-            and (0 < walk_elems or 0 < dedup_walk)):
-        # one VMEM-resident Pallas pass: sort + (dedup+)sweep + top-k
-        # (ops.candidates_pallas) — callers must not need per-hit lists
-        # (emit_hits=False), since the sorted slots never reach HBM
-        assert not emit_hits, \
-            "fused_candidates cannot emit per-hit lists"
-        if pack_bits:
-            import os as _os
-            from .candidates_pallas import candidates_pallas_packed
-            # split sort/sweep kernels measured +3% on the toy bench
-            # (L=256) and +5% on the 944 Mbp deep bench (L=4096, fused
-            # escalation 10.9 -> 10.35 ms/batch) — default ON at every
-            # width; MC_SPLIT_CAND=0 restores the single fused kernel.
-            split = _os.environ.get("MC_SPLIT_CAND") != "0"
-            cand_tgt, cand_hits, cand_beg, cand_end = \
-                candidates_pallas_packed(
-                    tgt, mwir, pack_bits,
-                    walk_elems=0 if dedup_walk else walk_elems,
-                    dedup_walk=dedup_walk, max_candidates=kk,
-                    presorted=presorted_runs, split=split)
-        else:
-            from .candidates_pallas import candidates_pallas
-            cand_tgt, cand_hits, cand_beg, cand_end = candidates_pallas(
-                tgt, win, mwir,
-                walk_elems=0 if dedup_walk else walk_elems,
-                dedup_walk=dedup_walk, max_candidates=kk,
-                presorted=presorted_runs)
-        ntax = merge_tax_of_target.shape[0]
-        cand_tax = jnp.where(
-            cand_tgt >= 0,
-            merge_tax_of_target[jnp.clip(cand_tgt, 0, ntax - 1)], 0)
-        cls_tax = classify_candidates(
-            cand_tgt, cand_tax, cand_hits, lineages,
-            hits_min, hits_diff_frac, highest_rank, merge_rank)
-        dummy = jnp.zeros((1,), jnp.int32)
-        return QueryResult(cand_tgt, cand_tax, cand_hits, cand_beg,
-                           cand_end, cls_tax, dummy, dummy, dummy)
 
     # ---- per-row sort by (target, window) ------------------------------
     if pack_bits:
@@ -300,7 +223,7 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
     # first insertion position per taxon group (groups are contiguous
     # runs after the sort; the representative is the group's first
     # element). One cummin with a per-group lane offset replaces two
-    # tuple associative scans (profiled ~6.5 ms -> ~1 ms on TPU): with
+    # tuple associative scans: with
     # g = group index and L2 > lane count, v = pos + g*L2 makes every
     # later group's values larger than any value of group g, so the
     # suffix min at a group start is g*L2 + min(pos in group).
@@ -395,8 +318,7 @@ def _fast_top2_result(tgt, win, hits, lo, is_match, carry_beg,
     kb = l2 * l2
     # group-isolated keys fit i32 only while l * l2^2 < 2^31 (~192
     # slots); deep-bucket databases (spf up to 254 -> l ~ 4k) widen the
-    # scan to i64 (emulated on TPU: ~2x the cummax cost, still far below
-    # the three L-lane bitonic sorts this path replaces)
+    # scan to i64
     import contextlib
     wide = l * kb >= 2**31
     ctx = jax.enable_x64(True) if wide else contextlib.nullcontext()
@@ -542,9 +464,9 @@ def _classed_probe(flat, loc_tgt, loc_win, dense, c: int, idx_c):
     return pks, cnt, cnt > hsl
 
 
+@stage("gather_decode")
 def probe_rows_head(feats, loc_tgt, prefix_starts, prefix_bits: int,
-                    dense: tuple, alt_runs: int, pack_bits: int,
-                    idx_pre=None):
+                    dense: tuple, pack_bits: int, idx_pre=None):
     """Head-only two-tier probe (escalation phase 1).
 
     ONE head-row gather per probe instead of head + overflow: slots
@@ -553,7 +475,8 @@ def probe_rows_head(feats, loc_tgt, prefix_starts, prefix_bits: int,
     are classified EXACTLY by the head slots; over=True queries must
     re-run through the full-depth path (the caller's phase 2).
 
-    -> (pk (B, f*rl) packed slots with I32_MAX padding, over (B,) bool).
+    -> (pk (B, f*head) packed slots with I32_MAX padding,
+        over (B,) bool).
     Requires a slot-packed two-tier layout and pack_bits == slot_bits.
     """
     from .probe import probe_bucket, probe_bucket_classed
@@ -584,19 +507,6 @@ def probe_rows_head(feats, loc_tgt, prefix_starts, prefix_bits: int,
         else:
             idx_c, _ = probe_bucket(flat, prefix_starts, prefix_bits)
             idx_c = jnp.clip(idx_c, 0, None)
-        rl_k = alt_runs if alt_runs else hsl
-        if (hpack and not wide and hsl <= 61 and rl_k >= 64
-                and alt_runs):
-            from .probe_pallas import head_decode, probe_pallas_enabled
-            if probe_pallas_enabled("head"):
-                # one-pass VMEM decode of the gathered head rows
-                # (half-select + meta match + count mask + odd-run
-                # reversal); bit-identical to the XLA path below
-                r2 = loc_tgt[idx_c >> 1]
-                pk, cnt = head_decode(r2, idx_c & 1, flat, hsl, rl_k,
-                                      f)
-                over = jnp.any((cnt > hsl).reshape(b, f), axis=1)
-                return pk.reshape(b, f * rl_k), over
         if hpack:
             r2 = loc_tgt[idx_c >> 1]
             rows = jnp.where((idx_c & 1)[:, None] == 1, r2[:, 64:],
@@ -610,39 +520,24 @@ def probe_rows_head(feats, loc_tgt, prefix_starts, prefix_bits: int,
         j = jax.lax.broadcasted_iota(jnp.int32, (b * f, hsl), 1)
         hit = j < jnp.minimum(cnt, hsl)[:, None]
         pk = jnp.where(hit, rows[:, nx + 2:nx + 2 + hsl], I32_MAX)
-    rl = alt_runs if alt_runs else hsl
-    if rl > hsl:
-        pk = jnp.concatenate(
-            [pk, jnp.full((b * f, rl - hsl), I32_MAX, jnp.int32)],
-            axis=1)
-    if alt_runs:
-        fidx = jax.lax.broadcasted_iota(jnp.int32, (b * f, 1), 0) % f
-        pk = jnp.where((fidx & 1) == 1, jax.lax.rev(pk, (1,)), pk)
-    return pk.reshape(b, f * rl), over
+    return pk.reshape(b, f * hsl), over
 
 
+@stage("gather_decode")
 def probe_rows(feats, table_feats, table_offsets, loc_tgt, loc_win,
                slots_per_feature: int, prefix_starts=None,
                prefix_bits: int = 16, prefix_steps: int = 0,
-               dense: bool = False, alt_runs: int = 0,
-               pack_bits: int = 0, idx_pre=None):
+               dense: bool = False, pack_bits: int = 0, idx_pre=None):
     """(B, F) features -> (B, F*C) match slots (tgt, win).
 
     ``pack_bits=w`` returns (pk, pk) instead, with
     pk = (tgt << w) | win and I32_MAX padding — the single-i32 slot
     encoding consumed by rows_to_result(pack_bits=w).
 
-    ``alt_runs=r`` (power of two >= C) pads each feature's slot segment
-    to r lanes and REVERSES odd-numbered features' segments, emitting
-    (B, F*r) slots as alternating asc/desc sorted runs — the bitonic
-    invariant that lets the fused candidates kernel skip its first
-    log2(r) sort phases (deep-bucket databases).
-
     With ``dense=True``, ``loc_tgt`` is a *fused* (F, 2+2C padded) row
     table [feature, count, tgt*C, win*C] (``loc_win`` is ignored): after
     the prefix search, a SINGLE row gather yields the membership check,
-    bucket size and every location — small separate gathers are
-    near-serial on TPU.
+    bucket size and every location.
     """
     from .probe import (probe_bucket, probe_bucket64,
                         probe_bucket_classed, probe_features)
@@ -713,29 +608,6 @@ def probe_rows(feats, table_feats, table_offsets, loc_tgt, loc_win,
         opack = len(dense) > 3 and dense[3]
         slot_bits = dense[4] if len(dense) > 4 else 0
         nx = 2 if wide else 1
-        if (hpack and not opack and not wide and slot_bits
-                and slot_bits == pack_bits and hsl <= 61
-                and alt_runs and alt_runs >= c):
-            from .probe_pallas import (full_decode,
-                                       probe_pallas_enabled)
-            if probe_pallas_enabled("full"):
-                # kernel decode of head + overflow rows in one VMEM
-                # pass; only the ovf-id extraction stays XLA (it must
-                # precede the overflow gather)
-                r2 = loc_tgt[idx_c >> 1]
-                if probe_pallas_enabled("oidx"):
-                    from .probe_pallas import oidx_decode
-                    oidx = oidx_decode(r2, idx_c & 1, flat)
-                else:
-                    halfr = jnp.where((idx_c & 1)[:, None] == 1,
-                                      r2[:, 64:], r2[:, :64])
-                    fnd = _meta_match(halfr, flat, False)
-                    oidx = jnp.where(fnd, halfr[:, nx + 1], 0)
-                orow = loc_win[oidx]
-                pk = full_decode(r2, orow, idx_c & 1, flat, hsl, c,
-                                 alt_runs, f)
-                pk = pk.reshape(b, f * alt_runs)
-                return pk, pk
         rows = half_gather(loc_tgt, idx_c) if hpack else loc_tgt[idx_c]
         found = _meta_match(rows, flat, wide)
         cnt = jnp.where(found, rows[:, nx], 0)
@@ -813,29 +685,8 @@ def probe_rows(feats, table_feats, table_offsets, loc_tgt, loc_win,
                 pks == I32_MAX, I32_MAX,
                 (jax.lax.shift_right_logical(pks, jnp.int32(slot_bits))
                  << jnp.int32(pack_bits)) | (pks & ((1 << slot_bits) - 1)))
-        if alt_runs:
-            rl = alt_runs
-            if rl > c:
-                pk = jnp.concatenate(
-                    [pk, jnp.full((b * f, rl - c), I32_MAX, jnp.int32)],
-                    axis=1)
-            fidx = jax.lax.broadcasted_iota(jnp.int32, (b * f, 1), 0) % f
-            pk = jnp.where((fidx & 1) == 1, jax.lax.rev(pk, (1,)), pk)
-            pk = pk.reshape(b, f * rl)
-        else:
-            pk = pk.reshape(b, f * c)
+        pk = pk.reshape(b, f * c)
         return pk, pk
-    if alt_runs:
-        rl = alt_runs
-        if rl > c:
-            padc = jnp.full((b * f, rl - c), I32_MAX, jnp.int32)
-            tgts = jnp.concatenate([tgts, padc], axis=1)
-            wins = jnp.concatenate([wins, padc], axis=1)
-        fidx = jax.lax.broadcasted_iota(jnp.int32, (b * f, 1), 0) % f
-        odd = (fidx & 1) == 1
-        tgts = jnp.where(odd, jax.lax.rev(tgts, (1,)), tgts)
-        wins = jnp.where(odd, jax.lax.rev(wins, (1,)), wins)
-        return tgts.reshape(b, f * rl), wins.reshape(b, f * rl)
     return tgts.reshape(b, f * c), wins.reshape(b, f * c)
 
 
@@ -844,8 +695,8 @@ def probe_rows(feats, table_feats, table_offsets, loc_tgt, loc_win,
     static_argnames=("k", "sketchlen", "slots_per_feature",
                      "windows_per_query", "max_candidates",
                      "prefix_bits", "prefix_steps", "num_parts", "dense",
-                     "walk_elems", "dedup_walk", "fast_top2",
-                     "fused_candidates", "emit_hits", "pack_bits"))
+                     "walk_elems", "dedup_walk", "fast_top2", "emit_hits",
+                     "pack_bits"))
 def query_step_rows_multipart(windows, valid, mwir,
                               part_feats, part_offsets, part_ltgt,
                               part_lwin, merge_tax_of_target, lineages,
@@ -861,7 +712,6 @@ def query_step_rows_multipart(windows, valid, mwir,
                               walk_elems: int = 0,
                               dedup_walk: int = 0,
                               fast_top2: bool = False,
-                              fused_candidates: bool = False,
                               emit_hits: bool = True,
                               pack_bits: int = 0) -> QueryResult:
     """Row-layout query over a multi-part database: sketch once, probe
@@ -888,8 +738,7 @@ def query_step_rows_multipart(windows, valid, mwir,
         tgt, win, mwir, merge_tax_of_target, lineages,
         hits_min, hits_diff_frac, highest_rank, merge_rank,
         max_candidates=max_candidates, walk_elems=walk_elems,
-        dedup_walk=dedup_walk, fast_top2=fast_top2,
-        fused_candidates=fused_candidates, emit_hits=emit_hits,
+        dedup_walk=dedup_walk, fast_top2=fast_top2, emit_hits=emit_hits,
         pack_bits=pack_bits)
 
 
@@ -898,8 +747,7 @@ def query_step_rows_multipart(windows, valid, mwir,
     static_argnames=("k", "sketchlen", "slots_per_feature",
                      "windows_per_query", "max_candidates",
                      "prefix_bits", "prefix_steps", "dense",
-                     "use_pallas_sketch", "walk_elems", "dedup_walk",
-                     "fast_top2", "fused_candidates", "emit_hits",
+                     "walk_elems", "dedup_walk", "fast_top2", "emit_hits",
                      "pack_bits"))
 def query_step_rows(windows, valid, mwir,
                     table_feats, table_offsets, loc_tgt, loc_win,
@@ -910,11 +758,9 @@ def query_step_rows(windows, valid, mwir,
                     windows_per_query: int, max_candidates: int,
                     prefix_bits: int = 16, prefix_steps: int = 0,
                     dense: bool = False,
-                    use_pallas_sketch: bool = False,
                     walk_elems: int = 0,
                     dedup_walk: int = 0,
                     fast_top2: bool = False,
-                    fused_candidates: bool = False,
                     emit_hits: bool = True,
                     pack_bits: int = 0) -> QueryResult:
     """Row-layout classification step.
@@ -924,23 +770,19 @@ def query_step_rows(windows, valid, mwir,
     mwir: (B,) i32 contiguous-range length per query.
     """
     b, wq, w = windows.shape
-    feats = _sketch_dispatch(windows.reshape(b * wq, w),
-                             valid.reshape(b * wq), k, sketchlen,
-                             use_pallas_sketch)
+    feats = sketch_windows(windows.reshape(b * wq, w),
+                           valid.reshape(b * wq), k=k, sketchlen=sketchlen)
     feats = feats.reshape(b, wq * sketchlen)
-    alt = _alt_runs(fused_candidates, fast_top2, walk_elems, dedup_walk,
-                    wq * sketchlen, slots_per_feature)
     tgt, win = probe_rows(feats, table_feats, table_offsets, loc_tgt,
                           loc_win, slots_per_feature, prefix_starts,
                           prefix_bits, prefix_steps, dense,
-                          alt_runs=alt, pack_bits=pack_bits)
+                          pack_bits=pack_bits)
     return rows_to_result(
         tgt, win, mwir, merge_tax_of_target, lineages,
         hits_min, hits_diff_frac, highest_rank, merge_rank,
         max_candidates=max_candidates, walk_elems=walk_elems,
-        dedup_walk=dedup_walk, fast_top2=fast_top2,
-        fused_candidates=fused_candidates, emit_hits=emit_hits,
-        presorted_runs=alt, pack_bits=pack_bits)
+        dedup_walk=dedup_walk, fast_top2=fast_top2, emit_hits=emit_hits,
+        pack_bits=pack_bits)
 
 
 def _roll1(a):
@@ -952,8 +794,7 @@ def _roll1(a):
     static_argnames=("k", "sketchlen", "slots_per_feature",
                      "windows_per_query", "max_candidates",
                      "prefix_bits", "prefix_steps", "dense",
-                     "use_pallas_sketch", "walk_elems", "dedup_walk",
-                     "fast_top2", "fused_candidates", "pack_bits",
+                     "walk_elems", "dedup_walk", "fast_top2", "pack_bits",
                      "infeed_packed", "prefetch"))
 def query_step_rows_scan(windows_k, valid_k, mwir_k,
                          table_feats, table_offsets, loc_tgt, loc_win,
@@ -964,11 +805,9 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k,
                          slots_per_feature: int, windows_per_query: int,
                          max_candidates: int, prefix_bits: int = 16,
                          prefix_steps: int = 0, dense: bool = False,
-                         use_pallas_sketch: bool = False,
                          walk_elems: int = 0,
                          dedup_walk: int = 0,
                          fast_top2: bool = False,
-                         fused_candidates: bool = False,
                          pack_bits: int = 0,
                          infeed_packed: bool = False,
                          prefetch: bool = False):
@@ -981,15 +820,14 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k,
     ``infeed_packed``: windows_k holds 2-bit-packed codes (4 bases per
     byte, N-free reads only — the host routes reads containing
     ambiguous characters through the unpacked path); unpacked on
-    device. Quarters the host->device transfer, which is what bounds
-    end-to-end throughput on thin links.
+    device. Quarters the host->device transfer.
 
     ``prefetch``: software-pipeline the scan — iteration i classifies
     batch i from a (sketch, bucket-probe) stage computed in iteration
-    i-1, so that stage's HBM gather overlaps the row gathers +
-    candidates kernel of the previous batch (measured: toy DB 4.77 ->
-    4.38 ms/batch on a v5e). Requires a fused-row layout (bucket-row
-    prefix index). Results are identical to the plain scan."""
+    i-1, so that stage's gather can overlap the row gathers and
+    candidates of the previous batch. Requires a fused-row layout
+    (bucket-row prefix index). Results are identical to the plain
+    scan."""
     kk, b, wq, w = windows_k.shape[0], windows_k.shape[1], \
         windows_k.shape[2], windows_k.shape[3]
     if infeed_packed:
@@ -1003,28 +841,23 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k,
             shifts = jnp.arange(4, dtype=jnp.uint8) * 2
             wmat = ((wmat[..., None] >> shifts) &
                     jnp.uint8(3)).reshape(b, wq, w)
-        feats = _sketch_dispatch(wmat.reshape(b * wq, w),
-                                 vmat.reshape(b * wq), k, sketchlen,
-                                 use_pallas_sketch)
+        feats = sketch_windows(wmat.reshape(b * wq, w),
+                               vmat.reshape(b * wq), k=k,
+                               sketchlen=sketchlen)
         return feats.reshape(b, wq * sketchlen)
-
-    alt = _alt_runs(fused_candidates, fast_top2, walk_elems,
-                    dedup_walk, wq * sketchlen, slots_per_feature)
 
     def stage2(feats, mw, idx_pre=None):
         mw = mw.astype(jnp.int32)
         tgt, win = probe_rows(feats, table_feats, table_offsets, loc_tgt,
                               loc_win, slots_per_feature, prefix_starts,
                               prefix_bits, prefix_steps, dense,
-                              alt_runs=alt, pack_bits=pack_bits,
-                              idx_pre=idx_pre)
+                              pack_bits=pack_bits, idx_pre=idx_pre)
         res = rows_to_result(
             tgt, win, mw, merge_tax_of_target, lineages,
             hits_min, hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
-            dedup_walk=dedup_walk, fast_top2=fast_top2,
-            fused_candidates=fused_candidates, emit_hits=False,
-            presorted_runs=alt, pack_bits=pack_bits)
+            dedup_walk=dedup_walk, fast_top2=fast_top2, emit_hits=False,
+            pack_bits=pack_bits)
         return res.cls_tax
 
     if prefetch and prefix_starts is not None and dense:
@@ -1075,7 +908,7 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k,
     static_argnames=("sketchlen", "slots_per_feature",
                      "max_candidates", "prefix_bits", "dense",
                      "walk_elems", "dedup_walk", "fast_top2",
-                     "fused_candidates", "pack_bits"))
+                     "pack_bits"))
 def query_step_rows_redo(feats, idx_c, mwir,
                          table_feats, table_offsets, loc_tgt, loc_win,
                          merge_tax_of_target, lineages,
@@ -1087,7 +920,6 @@ def query_step_rows_redo(feats, idx_c, mwir,
                          walk_elems: int = 0,
                          dedup_walk: int = 0,
                          fast_top2: bool = True,
-                         fused_candidates: bool = False,
                          pack_bits: int = 0):
     """Escalation phase 2 on PRE-SKETCHED queries.
 
@@ -1101,19 +933,16 @@ def query_step_rows_redo(feats, idx_c, mwir,
     """
     b, f = feats.shape
     mwir = mwir.astype(jnp.int32)
-    alt = _alt_runs(fused_candidates, fast_top2, walk_elems, dedup_walk,
-                    f, slots_per_feature)
     tgt, win = probe_rows(feats, table_feats, table_offsets, loc_tgt,
                           loc_win, slots_per_feature, None,
-                          prefix_bits, 0, dense, alt_runs=alt,
-                          pack_bits=pack_bits, idx_pre=idx_c)
+                          prefix_bits, 0, dense, pack_bits=pack_bits,
+                          idx_pre=idx_c)
     res = rows_to_result(
         tgt, win, mwir, merge_tax_of_target, lineages,
         hits_min, hits_diff_frac, highest_rank, merge_rank,
         max_candidates=max_candidates, walk_elems=walk_elems,
-        dedup_walk=dedup_walk, fast_top2=fast_top2,
-        fused_candidates=fused_candidates, emit_hits=False,
-        presorted_runs=alt, pack_bits=pack_bits)
+        dedup_walk=dedup_walk, fast_top2=fast_top2, emit_hits=False,
+        pack_bits=pack_bits)
     return res.cls_tax
 
 
@@ -1122,7 +951,7 @@ def query_step_rows_redo(feats, idx_c, mwir,
     static_argnames=("sketchlen", "slots_per_feature",
                      "max_candidates", "prefix_bits", "dense",
                      "walk_elems", "dedup_walk", "fast_top2",
-                     "fused_candidates", "pack_bits"))
+                     "pack_bits"))
 def query_step_rows_redo_scan(feats_k, idx_k, mwir_k,
                               table_feats, table_offsets, loc_tgt,
                               loc_win, merge_tax_of_target, lineages,
@@ -1134,7 +963,6 @@ def query_step_rows_redo_scan(feats_k, idx_k, mwir_k,
                               walk_elems: int = 0,
                               dedup_walk: int = 0,
                               fast_top2: bool = True,
-                              fused_candidates: bool = False,
                               pack_bits: int = 0):
     """K stacked phase-2 redo batches in one dispatch (see
     query_step_rows_redo); feats_k (K, B, F) u32, idx_k (K, B, F) i32,
@@ -1147,9 +975,7 @@ def query_step_rows_redo_scan(feats_k, idx_k, mwir_k,
                       max_candidates=max_candidates,
                       prefix_bits=prefix_bits, dense=dense,
                       walk_elems=walk_elems, dedup_walk=dedup_walk,
-                      fast_top2=fast_top2,
-                      fused_candidates=fused_candidates,
-                      pack_bits=pack_bits)
+                      fast_top2=fast_top2, pack_bits=pack_bits)
     return jax.lax.scan(
         lambda c, xs: (c, body(*xs)), 0, (feats_k, idx_k, mwir_k))[1]
 
@@ -1158,26 +984,23 @@ def _redo_body(table_feats, table_offsets, loc_tgt, loc_win,
                merge_tax_of_target, lineages, hits_min, hits_diff_frac,
                highest_rank, merge_rank, *, slots_per_feature,
                max_candidates, prefix_bits, dense, walk_elems,
-               dedup_walk, fast_top2, fused_candidates, pack_bits):
+               dedup_walk, fast_top2, pack_bits):
     """Full-depth classification of pre-sketched, pre-probed queries —
     the escalation phase-2 step body (see query_step_rows_redo)."""
     def body(feats, idx_c, mw):
         b, f = feats.shape
         mw = mw.astype(jnp.int32)
-        alt = _alt_runs(fused_candidates, fast_top2, walk_elems,
-                        dedup_walk, f, slots_per_feature)
         tgt, win = probe_rows(feats, table_feats, table_offsets,
                               loc_tgt, loc_win, slots_per_feature,
                               None, prefix_bits, 0, dense,
-                              alt_runs=alt, pack_bits=pack_bits,
+                              pack_bits=pack_bits,
                               idx_pre=idx_c.reshape(-1))
         res = rows_to_result(
             tgt, win, mw, merge_tax_of_target, lineages,
             hits_min, hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
-            dedup_walk=dedup_walk, fast_top2=fast_top2,
-            fused_candidates=fused_candidates, emit_hits=False,
-            presorted_runs=alt, pack_bits=pack_bits)
+            dedup_walk=dedup_walk, fast_top2=fast_top2, emit_hits=False,
+            pack_bits=pack_bits)
         return res.cls_tax
 
     return body
@@ -1187,8 +1010,8 @@ def _redo_body(table_feats, table_offsets, loc_tgt, loc_win,
     jax.jit,
     static_argnames=("k", "sketchlen", "slots_per_feature",
                      "max_candidates", "prefix_bits", "dense",
-                     "use_pallas_sketch", "walk_elems", "fast_top2",
-                     "fused_candidates", "pack_bits", "infeed_packed"))
+                     "walk_elems", "fast_top2", "pack_bits",
+                     "infeed_packed"))
 def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
                                     redo_feats_k, redo_idx_k,
                                     redo_mwir_k,
@@ -1201,10 +1024,8 @@ def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
                                     slots_per_feature: int,
                                     max_candidates: int,
                                     prefix_bits: int, dense: tuple,
-                                    use_pallas_sketch: bool = False,
                                     walk_elems: int = 0,
                                     fast_top2: bool = True,
-                                    fused_candidates: bool = False,
                                     pack_bits: int = 0,
                                     infeed_packed: bool = False):
     """Escalation phases 1 AND 2 fused into ONE scan dispatch.
@@ -1214,8 +1035,8 @@ def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
     host-fed slice of earlier flagged reads at full depth
     (redo_feats_k/redo_idx_k (K, B2, F) from phase-1's saved outputs).
     The two streams are data-independent inside each iteration, so the
-    scheduler can interleave phase 2's VPU-bound candidates sort under
-    phase 1's HBM row gathers — the single-dispatch analog of the
+    scheduler can interleave phase 2's candidates sort with phase 1's
+    row gathers — the single-dispatch analog of the
     reference GPU's per-thread loop simply continuing into deep buckets
     (gpu_hashmap_operations.cuh:841-1043).
 
@@ -1227,8 +1048,6 @@ def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
     assert wq == 1, "escalation is the short-read scan path"
     if infeed_packed:
         w = w * 4
-    hsl = dense[1]
-    rl = 1 << max(int(hsl - 1).bit_length(), 0)
     from .probe import probe_bucket, probe_bucket_classed
     classed = dense[0] == "classed"
 
@@ -1238,9 +1057,9 @@ def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
             shifts = jnp.arange(4, dtype=jnp.uint8) * 2
             wmat = ((wmat[..., None] >> shifts) &
                     jnp.uint8(3)).reshape(b, wq, w)
-        feats = _sketch_dispatch(wmat.reshape(b * wq, w),
-                                 vmat.reshape(b * wq), k, sketchlen,
-                                 use_pallas_sketch)
+        feats = sketch_windows(wmat.reshape(b * wq, w),
+                               vmat.reshape(b * wq), k=k,
+                               sketchlen=sketchlen)
         return feats.reshape(b, wq * sketchlen)
 
     def bucket(feats):
@@ -1260,14 +1079,13 @@ def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
     def stage2_head(feats, mw, idx_c):
         mw = mw.astype(jnp.int32)
         pk, over = probe_rows_head(feats, loc_tgt, prefix_starts,
-                                   prefix_bits, dense, alt_runs=rl,
+                                   prefix_bits, dense,
                                    pack_bits=pack_bits, idx_pre=idx_c)
         res = rows_to_result(
             pk, pk, mw, merge_tax_of_target, lineages,
             hits_min, hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
-            fast_top2=fast_top2, fused_candidates=fused_candidates,
-            emit_hits=False, presorted_runs=rl, pack_bits=pack_bits)
+            fast_top2=fast_top2, emit_hits=False, pack_bits=pack_bits)
         ob = over.reshape(b // 32, 32).astype(jnp.int32)
         obits = (ob << jax.lax.broadcasted_iota(
             jnp.int32, (b // 32, 32), 1)).sum(axis=1, dtype=jnp.int32)
@@ -1280,9 +1098,7 @@ def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
                       max_candidates=max_candidates,
                       prefix_bits=prefix_bits, dense=dense,
                       walk_elems=walk_elems, dedup_walk=0,
-                      fast_top2=fast_top2,
-                      fused_candidates=fused_candidates,
-                      pack_bits=pack_bits)
+                      fast_top2=fast_top2, pack_bits=pack_bits)
 
     f0 = stage1(windows_k[0], valid_k[0])
     i0 = bucket(f0)
@@ -1308,8 +1124,7 @@ def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k,
     jax.jit,
     static_argnames=("k", "sketchlen", "slots_per_feature",
                      "max_candidates", "prefix_bits", "dense",
-                     "use_pallas_sketch", "walk_elems", "dedup_walk",
-                     "fast_top2", "fused_candidates", "pack_bits",
+                     "walk_elems", "dedup_walk", "fast_top2", "pack_bits",
                      "infeed_packed", "prefetch", "return_feats"))
 def query_step_rows_scan_head(windows_k, valid_k, mwir_k,
                               table_feats, table_offsets, loc_tgt,
@@ -1320,11 +1135,9 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k,
                               slots_per_feature: int,
                               max_candidates: int, prefix_bits: int,
                               dense: tuple,
-                              use_pallas_sketch: bool = False,
                               walk_elems: int = 0,
                               dedup_walk: int = 0,
                               fast_top2: bool = True,
-                              fused_candidates: bool = False,
                               pack_bits: int = 0,
                               infeed_packed: bool = False,
                               prefetch: bool = False,
@@ -1333,14 +1146,14 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k,
 
     Like query_step_rows_scan but with ONE row gather per probe (the
     overflow gather is skipped — the two-tier hot path's second memory
-    access) and a much smaller candidate sort (L = f * pow2(head)
-    instead of f * pow2(spf)). Returns (cls (K, B) i32,
+    access) and a much smaller candidate sort (L = f * head instead of
+    f * spf). Returns (cls (K, B) i32,
     over (K, B/32) i32 bitmask): queries whose bit is set touched a
     bucket deeper than the head and MUST be reclassified through the
     full-depth step; the rest are exact.
 
     The adaptive-depth counterpart of the reference GPU's data-dependent
-    per-thread loops (gpu_hashmap_operations.cuh:841-1043): TPU static
+    per-thread loops (gpu_hashmap_operations.cuh:841-1043): static
     shapes otherwise pay worst-case bucket depth for every read.
     """
     kk, b = windows_k.shape[0], windows_k.shape[1]
@@ -1349,8 +1162,6 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k,
         "return_feats reuses the prefetch carry's (feats, idx) pair"
     if infeed_packed:
         w = w * 4
-    hsl = dense[1]
-    rl = 1 << max(int(hsl - 1).bit_length(), 0)
 
     def stage1(wmat, vmat):
         vmat = vmat.astype(jnp.int32)
@@ -1358,15 +1169,15 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k,
             shifts = jnp.arange(4, dtype=jnp.uint8) * 2
             wmat = ((wmat[..., None] >> shifts) &
                     jnp.uint8(3)).reshape(b, wq, w)
-        feats = _sketch_dispatch(wmat.reshape(b * wq, w),
-                                 vmat.reshape(b * wq), k, sketchlen,
-                                 use_pallas_sketch)
+        feats = sketch_windows(wmat.reshape(b * wq, w),
+                               vmat.reshape(b * wq), k=k,
+                               sketchlen=sketchlen)
         return feats.reshape(b, wq * sketchlen)
 
     def stage2(feats, mw, idx_pre=None):
         mw = mw.astype(jnp.int32)
         pk, over = probe_rows_head(feats, loc_tgt, prefix_starts,
-                                   prefix_bits, dense, alt_runs=rl,
+                                   prefix_bits, dense,
                                    pack_bits=pack_bits,
                                    idx_pre=idx_pre)
         res = rows_to_result(
@@ -1374,8 +1185,7 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k,
             hits_min, hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
             dedup_walk=dedup_walk,
-            fast_top2=fast_top2, fused_candidates=fused_candidates,
-            emit_hits=False, presorted_runs=rl, pack_bits=pack_bits)
+            fast_top2=fast_top2, emit_hits=False, pack_bits=pack_bits)
         # pack the over flags 32/word so the d2h fetch stays tiny
         ob = over.reshape(b // 32, 32).astype(jnp.int32)
         obits = (ob << jax.lax.broadcasted_iota(

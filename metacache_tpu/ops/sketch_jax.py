@@ -1,11 +1,11 @@
 """Device (JAX/XLA) windowed min-hash sketcher.
 
-TPU-native re-design of the reference's sketching hot loop
+Device re-design of the reference's sketching hot loop
 (single_function_unique_min_hasher::for_each_sketch, src/hash_dna.hpp:207-255
 and the GPU twin warp_make_sketch, src/gpu_hashmap_operations.cuh:385-453).
 
 Instead of a scalar insertion-sort per window, a whole batch of windows is
-processed at once on the VPU:
+processed at once:
 
   codes (N, W) u8  ->  k-mers (N, P) u32 via k shifted accumulations
                    ->  canonical via bit-twiddled reverse complement
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import FEATURE_SENTINEL
+from .stage import stage
 
 SENTINEL = np.uint32(FEATURE_SENTINEL)
 
@@ -106,6 +107,7 @@ def window_kmers(codes: jax.Array, k: int):
 
 
 @functools.partial(jax.jit, static_argnames=("k", "sketchlen"))
+@stage("sketch")
 def sketch_windows(codes: jax.Array, valid_lens: jax.Array,
                    k: int, sketchlen: int) -> jax.Array:
     """Sketch a batch of windows.

@@ -1,8 +1,8 @@
-"""Feature -> location store, TPU-native layout.
+"""Feature -> location store, device layout.
 
 The reference uses a pointer-chasing open-addressing multimap on CPU
 (src/hash_multimap.hpp) and warpcore tables on GPU (src/gpu_hashmap.cu).
-The TPU-native equivalent is two flat HBM arrays in CSR form — a
+The equivalent here is two flat device arrays in CSR form — a
 generalization of the reference's own GPU *query* table layout
 (feature -> packed offset|size into one flat locations array,
 src/gpu_hashmap.cu:647-661, 757-764):
@@ -16,7 +16,7 @@ query path requires (location::operator<, src/database.hpp:151-156; the
 post-merge per-bucket sort, src/host_hashmap.hpp:347-352).
 
 Construction is sort-based (sort all (feature, location) pairs, then
-run-length segment) — deterministic, TPU/XLA-friendly, and it yields the
+run-length segment) — deterministic, XLA-friendly, and it yields the
 sorted-bucket invariant for free. Probing is a vectorized branchless binary
 search (device) instead of open-addressing pointer chases.
 """
@@ -216,8 +216,8 @@ class FeatureTable:
     def dense_locations(self, width: int):
         """Padded 2D location matrix (F, width) for row-gather probing.
 
-        TPU gathers of whole rows lower ~1000x better than per-element
-        gathers, so when F*width is affordable the locations are stored
+        One gather of a whole row replaces a gather per element, so when
+        F*width is affordable the locations are stored
         densely; buckets larger than `width` are truncated to their first
         `width` (lowest (tgt,win)) entries — callers choose
         width >= max_bucket to keep exactness.
@@ -279,7 +279,7 @@ class FeatureTable:
 
         A single row gather then yields everything the probe needs —
         membership check, bucket size and all locations — instead of
-        5+ separate small gathers (each near-serial on TPU).
+        5+ separate small gathers.
         Row width = 2 + 2*width, padded to a multiple of 8 lanes.
         """
         assert self.unique_features.dtype != np.uint64, \
@@ -287,8 +287,8 @@ class FeatureTable:
         f = max(self.num_features, 1)
         spl = 1 if slot_bits else 2
         cols = 2 + spl * width
-        # XLA's TPU row gather has a fast path only at >= 64 lanes
-        # (measured: width 32 costs 3.4x width 64 for the same rows)
+        # at least 64 lanes: the row width the probe-row decode
+        # (ops.rows) was written and tested for
         cols_pad = max(64, ((cols + 7) // 8) * 8)
         out = np.zeros((f, cols_pad), np.int32)
         if self.num_features:

@@ -1,7 +1,7 @@
 """Host-side (NumPy) window extraction and batch shaping.
 
 Converts variable-length sequences into fixed-shape window matrices for the
-device sketcher — the TPU-native equivalent of the reference's host-side
+device sketcher — the equivalent of the reference's host-side
 read windowing (query_batch::add_paired_read, src/query_batch.cuh:85-209
 and sequence_batch::add_target, src/sequence_batch.cuh:132-195).
 

@@ -8,7 +8,7 @@ mesh ("data", "table"):
 - P2/P3 (database parts + multi-GPU query pipeline, the serial GPU P2P
   chain of src/query_batch.cu:464-527) -> the "table" mesh axis; the
   QUERY-side sharded step lives in parallel.rows_mesh (all_to_all slot
-  exchange over ICI — the only collective query path; the earlier
+  exchange — the only collective query path; the earlier
   all_gather variant here was retired because it held O(P) match
   matrices per device).
 - P4 (replication) -> reshape the mesh: more "data" rows, fewer "table"

@@ -4,8 +4,9 @@ The reference has no in-framework multi-node story — its only multi-node
 path is offline partition + merge over result files
 (/root/reference/src/mode_merge.cpp:80-293).  Here multi-host is
 first-class: `jax.distributed` joins N processes into one JAX runtime, a
-process-spanning mesh lays the **data axis across hosts (DCN)** and the
-**table axis within a host/slice (ICI)**, and the existing sharded query
+process-spanning mesh lays the **data axis across hosts (network)** and
+the **table axis within a host (NVLink on a GPU host)**, and the
+existing sharded query
 steps (parallel.rows_mesh / parallel.mesh) run unchanged — GSPMD only
 needs the mesh to span processes; the all_to_all over "table" stays
 intra-host because the table axis is the fast-varying mesh dim.
@@ -54,8 +55,9 @@ def make_global_mesh(num_data: int, num_table: int):
 
     Device grid rows (data groups) are filled process-major so each data
     group's `num_table` table shards are devices of ONE process — the
-    table-axis all_to_all rides ICI; only input distribution spans DCN
-    (and that is host-side file reading, not a collective)."""
+    table-axis all_to_all stays within a host; only input distribution
+    spans hosts (and that is host-side file reading, not a
+    collective)."""
     import jax
     from jax.sharding import Mesh
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))

@@ -8,8 +8,8 @@ Run by __graft_entry__.dryrun_multichip (and usable standalone):
 Each process forces the CPU platform with N virtual devices, joins the
 cluster via jax.distributed, builds the same synthetic database, and runs
 the sharded row-layout query step over a process-spanning ("data",
-"table") mesh — data axis across processes (DCN), table axis within a
-process (ICI).  Every process verifies its own row range against a
+"table") mesh — data axis across processes, table axis within a
+process.  Every process verifies its own row range against a
 single-device run and prints MULTIHOST_OK.
 """
 from __future__ import annotations
@@ -64,7 +64,7 @@ def main() -> int:
     num_table = 2
     num_data = ndev // num_table
     mesh = MH.make_global_mesh(num_data, num_table)
-    # table axis must stay within one process (ICI, not DCN)
+    # table axis must stay within one process
     for row in mesh.devices:
         assert len({d.process_index for d in row}) == 1, \
             "table shards of one data group span processes"

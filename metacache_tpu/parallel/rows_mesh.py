@@ -1,20 +1,20 @@
-"""Multi-chip row-layout classification over a ("data", "table") mesh.
+"""Multi-device row-layout classification over a ("data", "table") mesh.
 
 Two compositions of the row pipeline (ops.rows):
 
-1. **Pure data parallelism** (table fits per chip, reference P1/P4): every
+1. **Pure data parallelism** (table fits per device, reference P1/P4): every
    stage of the row pipeline is per-row, so sharding the window matrix
    across devices and replicating the table parallelizes the whole step
    with plain sharding annotations — XLA inserts no collectives at all.
 
-2. **Table sharding** (DB larger than one chip's HBM, reference P2/P3):
+2. **Table sharding** (DB larger than one device's memory, reference P2/P3):
    each "table"-axis device holds a feature-range shard (with its own
    dense location rows and prefix index) and probes the entire local
    batch; one `all_to_all` then trades slot columns for row subsets —
    device p receives ALL shards' match slots for 1/P of the rows and
    finishes candidates/LCA locally. This replaces the reference's serial
    GPU P2P pipeline (src/query_batch.cu:464-527) with a single XLA
-   collective over ICI.
+   collective (NCCL over NVLink on a GPU host).
 """
 from __future__ import annotations
 
@@ -174,7 +174,7 @@ def sharded_query_step_rows(windows, valid, mwir,
     ``pack_bits > 0``: shards are two-tier slot-packed (head_slots-wide
     heads + overflow rows, ShardedRowTable.slot_bits) — the exchange is
     then ONE pk matrix instead of the (tgt, win) pair, halving the
-    all_to_all volume over ICI.
+    all_to_all volume.
     """
     from jax import shard_map
     num_table = mesh.shape["table"]
@@ -286,7 +286,7 @@ def sharded_query_step_rows_head(windows, valid, mwir,
             feats = jax.lax.all_gather(feats, "table", axis=0,
                                        tiled=True)
         pk, over = probe_rows_head(feats, lt2, ps, prefix_bits,
-                                   dense_tag, 0, pack_bits)
+                                   dense_tag, pack_bits)
         if num_table > 1:
             pk = jax.lax.all_to_all(pk, "table", split_axis=0,
                                     concat_axis=1, tiled=True)

@@ -99,13 +99,10 @@ def test_classed_head_probe(tables):
     qf = _queries(rng, feats)
     b, f = qf.shape
     hsl = dt_c.head_slots
-    rl = 1 << max(int(hsl - 1).bit_length(), 0)
     pk_h, over = probe_rows_head(
         jnp.asarray(qf), dt_c.head, dt_c.brows, dt_c.bbits,
-        _tag(dt_c), alt_runs=rl, pack_bits=dt_c.slot_bits)
-    pk_h = np.asarray(pk_h).reshape(b, f, rl).copy()
-    pk_h[:, 1::2] = pk_h[:, 1::2, ::-1]   # undo alt-run reversal
-    pk_h = pk_h[:, :, :hsl]
+        _tag(dt_c), pack_bits=dt_c.slot_bits)
+    pk_h = np.asarray(pk_h).reshape(b, f, hsl)
     full = _probe(dt_t, qf).reshape(b, f, dt_t.spf)
     # expected: first min(cnt, hsl) slots of the full bucket
     sizes = np.diff(offs)

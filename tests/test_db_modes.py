@@ -129,7 +129,7 @@ def test_help_mode():
 def _run(args):
     import subprocess
     import sys as _sys
-    env = dict(os.environ, MC_JAX_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = os.path.dirname(HERE) + os.pathsep + \
         env.get("PYTHONPATH", "")
     return subprocess.run([_sys.executable, "-m", "metacache_tpu"] + args,
@@ -150,7 +150,7 @@ def test_scan_fusion_summary_identical(tmp_path):
     many.write_bytes(open(f"{DATA}/reads_single.fa", "rb").read() * 21)
 
     def run_k(k):
-        env = dict(os.environ, MC_JAX_PLATFORM="cpu", MC_SCAN_K=str(k))
+        env = dict(os.environ, JAX_PLATFORMS="cpu", MC_SCAN_K=str(k))
         env["PYTHONPATH"] = os.path.dirname(HERE) + os.pathsep + \
             env.get("PYTHONPATH", "")
         r = subprocess.run(
@@ -207,7 +207,7 @@ def test_two_tier_layout_end_to_end(tmp_path):
     assert r.returncode == 0, r.stderr.decode()[-800:]
 
     def q(extra_env):
-        env = dict(os.environ, MC_JAX_PLATFORM="cpu", **extra_env)
+        env = dict(os.environ, JAX_PLATFORMS="cpu", **extra_env)
         env["PYTHONPATH"] = os.path.dirname(HERE) + os.pathsep + \
             env.get("PYTHONPATH", "")
         r = subprocess.run(
@@ -240,7 +240,7 @@ def test_pairseq_odd_records_and_batch_carry(tmp_path):
     odd.write_text("\n".join(recs * 3 + recs[:1]) + "\n")
 
     def run(native):
-        env = dict(os.environ, MC_JAX_PLATFORM="cpu",
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
                    MC_NATIVE="0" if not native else "1")
         env["PYTHONPATH"] = os.path.dirname(HERE) + os.pathsep + \
             env.get("PYTHONPATH", "")
@@ -274,7 +274,7 @@ def test_scan_fusion_summary_identical_paired(tmp_path):
     m2.write_bytes(open(f"{DATA}/reads_pair2.fa", "rb").read() * 150)
 
     def run_k(k):
-        env = dict(os.environ, MC_JAX_PLATFORM="cpu", MC_SCAN_K=str(k))
+        env = dict(os.environ, JAX_PLATFORMS="cpu", MC_SCAN_K=str(k))
         env["PYTHONPATH"] = os.path.dirname(HERE) + os.pathsep + \
             env.get("PYTHONPATH", "")
         r = subprocess.run(
@@ -302,7 +302,7 @@ def test_device_layout_staging_identical(tmp_path):
     assert r.returncode == 0, r.stderr.decode()[-800:]
 
     def run(dev):
-        env = dict(os.environ, MC_JAX_PLATFORM="cpu",
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
                    MC_DEVICE_LAYOUT=dev)
         env["PYTHONPATH"] = os.path.dirname(HERE) + os.pathsep + \
             env.get("PYTHONPATH", "")

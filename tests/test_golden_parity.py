@@ -1,436 +1,169 @@
 """End-to-end parity vs the reference CPU binary's golden outputs.
 
-Builds the database once from the synthetic fixture, then runs the query
-CLI with the exact flag sets used by tests/make_goldens.sh and diffs the
-output line-by-line (timing/thread/path lines stripped, as in the
-reference's own test/run_tests).
+Builds the database once from the synthetic fixture, then runs the CLI
+with the exact flag sets used by tests/make_goldens.sh and diffs the
+output line by line (the cases live in tests/golden_cases.py, which
+chip_smoke.py runs too). Each CLI run is a subprocess; with
+``--device gpu`` the subprocesses run on the GPU, one at a time.
 """
 import os
-import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-DATA = os.path.join(HERE, "data")
-GOLD = os.path.join(DATA, "golden")
-REPO = os.path.dirname(HERE)
+import golden_cases as G
+
+REPO = os.path.dirname(G.HERE)
 
 
 @pytest.fixture(scope="module")
-def dbfile(tmp_path_factory):
+def cli(cli_env):
+    def run(args, stdin=None):
+        r = subprocess.run(
+            [sys.executable, "-m", "metacache_tpu"] + list(args),
+            input=stdin.encode() if stdin is not None else None,
+            capture_output=True, env=cli_env, cwd=REPO, timeout=1200)
+        return (r.returncode, r.stdout.decode(),
+                r.stderr.decode(errors="replace"))
+    return run
+
+
+@pytest.fixture
+def multi_device(device):
+    if device == "gpu":
+        pytest.skip("needs 8 devices; chip_smoke.py --multi runs the "
+                    "multi-card path")
+
+
+@pytest.fixture(scope="module")
+def dbfile(cli, tmp_path_factory):
     db = str(tmp_path_factory.mktemp("db") / "testdb")
-    r = _run(["build", db, f"{DATA}/genomes.fa",
-              "-taxonomy", f"{DATA}/taxonomy", "-parts", "1"])
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    G.build(cli, db)
     return db
 
 
-def _run(args):
-    env = dict(os.environ,
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                             ""))
-    # MC_GOLDEN_TPU=1 runs the whole golden suite against the real chip
-    # (reference: the GPU-parity lane of test/run_tests:164-185); default
-    # is the virtual-CPU platform so CI needs no hardware.
-    if not os.environ.get("MC_GOLDEN_TPU"):
-        env["MC_JAX_PLATFORM"] = "cpu"
-    return subprocess.run([sys.executable, "-m", "metacache_tpu"] + args,
-                          capture_output=True, env=env, cwd=REPO,
-                          timeout=600)
+@pytest.mark.parametrize("golden,args", G.CASES,
+                         ids=[c[0].split(".")[0] for c in G.CASES])
+def test_classification_parity(cli, dbfile, golden, args):
+    G.check_classification(cli, dbfile, golden, args)
 
 
-def _strip(text: str):
-    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
-    return [l for l in text.splitlines()
-            if not any(d in l for d in drop)]
+@pytest.mark.parametrize("i", range(len(G.FMT_FLAGS)))
+def test_formatting_matrix_parity(cli, dbfile, i):
+    G.check_fmt(cli, dbfile, i)
 
 
-def _golden(name: str):
-    with open(os.path.join(GOLD, name)) as f:
-        return _strip(f.read())
+def test_partitioned_merge_parity(cli, tmp_path):
+    G.check_partitioned_merge(cli, str(tmp_path))
 
 
-def _query(dbfile, args):
-    r = _run(["query", dbfile] + args)
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
-    return _strip(r.stdout.decode())
+def test_align_parity(cli, dbfile):
+    G.check_align(cli, dbfile)
 
 
-HITS_PER_REF_HDR = "# TABLE_LAYOUT:  sequence"
+def test_covpercentile_parity(cli, dbfile):
+    G.check_covpercentile(cli, dbfile)
 
 
-def _canon(lines):
-    """Sort the hits-per-ref block (reference iterates an unordered_map)."""
-    out, block, in_block = [], [], False
-    for l in lines:
-        if l.startswith("sequence:") and "\t|\t" in l:
-            in_block = True
-            block.append(l)
-        else:
-            if in_block and block:
-                out.extend(sorted(block))
-                block = []
-                in_block = False
-            out.append(l)
-    if block:
-        out.extend(sorted(block))
-    return out
+def test_custom_sketch_parity(cli, dbfile):
+    G.check_custom_sketch(cli, dbfile)
 
 
-CASES = [
-    ("classified_single_fa.txt", ["reads_single.fa", "-precision",
-     "-ground-truth", "-tophits", "-allhits", "-hits-per-ref",
-     "-abundances", "-abundance-per", "species"]),
-    ("classified_single_fq.txt", ["reads_single.fq", "-precision",
-     "-ground-truth", "-tophits"]),
-    ("classified_long_fa.txt", ["reads_long.fa", "-precision",
-     "-ground-truth", "-tophits"]),
-    ("classified_pairfiles.txt", ["reads_pair1.fa", "reads_pair2.fa",
-     "-pairfiles", "-precision", "-ground-truth", "-tophits"]),
-    ("classified_pairseq.txt", ["reads_pairseq.fa", "-pairseq",
-     "-precision", "-ground-truth", "-tophits"]),
-]
-
-FMT_FLAGS = [
-    [],
-    ["-lineage"],
-    ["-taxids"],
-    ["-taxids-only"],
-    ["-taxids-only", "-omit-ranks"],
-    ["-omit-ranks"],
-    ["-taxids", "-omit-ranks"],
-    ["-separate-cols"],
-    ["-taxids", "-separate-cols"],
-    ["-taxids-only", "-separate-cols", "-omit-ranks"],
-    ["-queryids"],
-    ["-queryids", "-lineage"],
-    ["-mapped-only"],
-    ["-separator", ":::"],
-    ["-lowest", "species"],
-    ["-lowest", "genus", "-taxids"],
-    ["-hitmin", "8"],
-    ["-hitdiff", "50"],
-    ["-maxcand", "4", "-tophits"],
-]
+def test_build_query_parity(cli):
+    G.check_build_query(cli)
 
 
-@pytest.mark.parametrize("golden,args", CASES,
-                         ids=[c[0].split(".")[0] for c in CASES])
-def test_classification_parity(dbfile, golden, args):
-    args = [f"{DATA}/{a}" if a.startswith("reads_") else a for a in args]
-    ours = _canon(_query(dbfile, args))
-    want = _canon(_golden(golden))
-    assert ours == want
+def test_locations_parity(cli, dbfile):
+    G.check_locations(cli, dbfile)
 
 
-@pytest.mark.parametrize("i", range(len(FMT_FLAGS)))
-def test_formatting_matrix_parity(dbfile, i):
-    ours = _query(dbfile, [f"{DATA}/reads_single.fa"] + FMT_FLAGS[i])
-    want = _golden(f"fmt_{i}.txt")
-    assert ours == want, f"flags: {FMT_FLAGS[i]}"
+def test_repl_parity(cli, dbfile):
+    G.check_repl(cli, dbfile)
 
 
-def test_partitioned_merge_parity(tmp_path):
-    """Partitioned build -> per-partition query -> merge == reference."""
-    from metacache_tpu.seqio.reader import read_sequences
-    recs = list(read_sequences(f"{DATA}/genomes.fa"))
-    a, b = str(tmp_path / "a.fa"), str(tmp_path / "b.fa")
-    for name, rs in [(a, recs[:3]), (b, recs[3:])]:
-        with open(name, "w") as f:
-            for r in rs:
-                f.write(f">{r.header}\n{r.seq.decode()}\n")
-    dba, dbb = str(tmp_path / "dbA"), str(tmp_path / "dbB")
-    assert _run(["build", dba, a, "-taxonomy", f"{DATA}/taxonomy"]
-                ).returncode == 0
-    assert _run(["build", dbb, b, "-taxonomy", f"{DATA}/taxonomy"]
-                ).returncode == 0
-    qargs = ["-lowest", "species", "-queryids", "-tophits", "-no-summary"]
-    ra, rb = str(tmp_path / "partition_resA.txt"), \
-        str(tmp_path / "partition_resB.txt")
-    for db, out in [(dba, ra), (dbb, rb)]:
-        r = _run(["query", db, f"{DATA}/reads_single.fa"] + qargs +
-                 ["-out", out])
-        assert r.returncode == 0, r.stderr.decode()[-800:]
-    # per-partition outputs must equal the reference's
-    for ours, golden in [(ra, "partition_resA.txt"),
-                         (rb, "partition_resB.txt")]:
-        with open(ours) as f:
-            assert _strip(f.read()) == _golden(golden)
-    r = _run(["merge", ra, rb, "-taxonomy", f"{DATA}/taxonomy",
-              "-lowest", "species", "-abundances"])
-    assert r.returncode == 0, r.stderr.decode()[-800:]
-    ours = [l for l in _strip(r.stdout.decode())
-            if "resA" not in l and "resB" not in l
-            and not l.startswith("Reading")]
-    want = [l for l in _golden("merged.txt")
-            if "resA" not in l and "resB" not in l
-            and not l.startswith("Reading")]
-    assert ours == want
+def test_highest_rank_parity(cli, dbfile):
+    G.check_highest_rank(cli, dbfile)
 
 
-_ALIGN_BLOCK = ("#   score", "#   query", "#   target")
+def test_insertsize_parity(cli, dbfile):
+    G.check_insertsize(cli, dbfile)
 
 
-def test_align_parity(dbfile):
-    """-align display vs the reference golden.
-
-    The reference binary's -align is broken: target_candidate.source.index
-    is stored 0-based but show_alignment skips `index-1` records with an
-    UNSIGNED index (src/classification.cpp:399, sequence_io.cpp:147-149),
-    so the first record of a file underflows (no alignment shown at all —
-    the common one-genome-per-file layout never aligns anything) and every
-    other read is aligned against the record BEFORE its true target.
-    We align against the true top candidate, so the test checks (a) all
-    non-alignment lines match the golden byte-for-byte and (b) our blocks
-    satisfy the correctness the reference intended: one block per
-    sequence-classified read, true 1-based source index, near-full score.
-    """
-    r = _run(["query", dbfile, f"{DATA}/reads_single.fa", "-align",
-              "-tophits"])
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
-    txt = r.stdout.decode().replace(DATA, "DATA")
-    ours = [l for l in _strip(txt)
-            if not l.startswith(_ALIGN_BLOCK)]
-    want = [l for l in _golden("align.txt")
-            if not l.startswith(_ALIGN_BLOCK)]
-    assert ours == want
-
-    # our alignment blocks: correct subject, near-perfect score
-    lines = _strip(txt)
-    mapped = [l for l in lines
-              if not l.startswith("#") and "\t|\t" in l]
-    score_lines = [l for l in lines if l.startswith("#   score")]
-    assert len(score_lines) == len(mapped)   # every classified read
-    import re
-    order = [l.split("_r")[0] for l in mapped]
-    genomes = [h.split()[0][1:] for h in
-               open(f"{DATA}/genomes.fa") if h.startswith(">")]
-    for hdr, sl in zip(order, score_lines):
-        m = re.match(r"#   score  (\d+)  aligned to (\S+) #(\d+) "
-                     r"in range \[(\d+),(\d+)\]", sl)
-        assert m, sl
-        score, fname, idx = int(m.group(1)), m.group(2), int(m.group(3))
-        assert fname == "DATA/genomes.fa"
-        assert genomes[idx - 1] == hdr      # true 1-based source index
-        assert score > 50                   # positive, right neighborhood
-
-
-def test_covpercentile_parity(dbfile):
-    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-cov-percentile",
-                           "50", "-precision", "-ground-truth",
-                           "-tophits"])
-    assert ours == _golden("covpct.txt")
-
-
-def test_custom_sketch_parity(dbfile):
-    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-sketchlen", "8",
-                           "-winlen", "96"])
-    assert ours == _golden("custom_sketch.txt")
-
-
-def _from_mappings(lines):
-    """Query-result section only (build+query prepends build narration)."""
-    for i, l in enumerate(lines):
-        if l.startswith("# Reporting"):
-            return lines[i:]
-    return lines
-
-
-def test_build_query_parity():
-    r = _run(["build+query", "-targets", f"{DATA}/genomes.fa",
-              "-taxonomy", f"{DATA}/taxonomy", "-query",
-              f"{DATA}/reads_single.fa", "-tophits"])
-    assert r.returncode == 0, r.stderr.decode()[-800:]
-    assert _from_mappings(_strip(r.stdout.decode())) == \
-        _from_mappings(_golden("buildquery.txt"))
-
-
-def test_locations_parity(dbfile):
-    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-locations",
-                           "-queryids"])
-    assert ours == _golden("locations.txt")
-
-
-def test_repl_parity(dbfile):
-    """Interactive REPL: options + file per stdin line
-    (the reference's test/run_tests drives its fmt matrix this way)."""
-    env = dict(os.environ, MC_JAX_PLATFORM="cpu",
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                             ""))
-    r = subprocess.run(
-        [sys.executable, "-m", "metacache_tpu", "query", dbfile],
-        input=f"{DATA}/reads_single.fa -tophits -no-summary\n".encode(),
-        capture_output=True, env=env, cwd=REPO, timeout=600)
-    assert r.returncode == 0, r.stderr.decode()[-800:]
-    # the REPL suppresses the query-params block reprint? compare the
-    # mapping rows only
-    ours = [l for l in _strip(r.stdout.decode()) if "\t|\t" in l
-            or l.startswith("# TABLE_LAYOUT")]
-    want = [l for l in _golden("repl.txt") if "\t|\t" in l
-            or l.startswith("# TABLE_LAYOUT")]
-    assert ours == want
-
-
-def test_highest_rank_parity(dbfile):
-    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-highest", "genus",
-                           "-taxids"])
-    assert ours == _golden("highest_genus.txt")
-
-
-def test_insertsize_parity(dbfile):
-    ours = _query(dbfile, [f"{DATA}/reads_pair1.fa",
-                           f"{DATA}/reads_pair2.fa", "-pairfiles",
-                           "-insertsize", "1000", "-tophits"])
-    assert ours == _golden("insertsize.txt")
-
-
-def test_replicate_matches_golden(dbfile):
+def test_replicate_matches_golden(cli, dbfile, multi_device):
     """-replicate 8 (data-parallel over the virtual 8-device mesh) must
     produce byte-identical mapping output to the single-device run
     (reference: gpu replication changes throughput, never results)."""
-    args = [f"{DATA}/reads_single.fa", "-precision", "-ground-truth",
-            "-tophits", "-allhits", "-hits-per-ref",
-            "-abundances", "-abundance-per", "species"]
-    ours = _canon(_query(dbfile, args + ["-replicate", "8"]))
-    want = _canon(_golden("classified_single_fa.txt"))
-    assert ours == want
+    args = G.data_args(G.ALL_OUTPUTS_ARGS)
+    ours = G.canon(G.query(cli, dbfile, args + ["-replicate", "8"]))
+    assert ours == G.canon(G.golden("classified_single_fa.txt"))
 
 
-def test_replicate_all_devices_long_reads(dbfile):
-    """-replicate 0 = all devices; long reads exercise the padded
-    single-query row path under sharding."""
-    ours = _query(dbfile, [f"{DATA}/reads_long.fa", "-precision",
-                           "-ground-truth", "-tophits",
-                           "-replicate", "0"])
-    assert ours == _golden("classified_long_fa.txt")
+def test_replicate_all_devices_long_reads(cli, dbfile):
+    G.check_replicate_all_devices(cli, dbfile)
 
 
-def test_table_shards_matches_golden(dbfile):
+def test_table_shards_matches_golden(cli, dbfile, multi_device):
     """-table-shards N (feature-range shards + all_to_all over the
     virtual mesh) must be byte-identical, alone and with -replicate."""
-    args = [f"{DATA}/reads_single.fa", "-precision", "-ground-truth",
-            "-tophits", "-allhits", "-hits-per-ref",
-            "-abundances", "-abundance-per", "species"]
-    want = _canon(_golden("classified_single_fa.txt"))
-    ours = _canon(_query(dbfile, args + ["-table-shards", "4"]))
+    args = G.data_args(G.ALL_OUTPUTS_ARGS)
+    want = G.canon(G.golden("classified_single_fa.txt"))
+    ours = G.canon(G.query(cli, dbfile, args + ["-table-shards", "4"]))
     assert ours == want
-    ours = _canon(_query(dbfile, args + ["-replicate", "2",
-                                         "-table-shards", "4"]))
+    ours = G.canon(G.query(cli, dbfile, args + ["-replicate", "2",
+                                                "-table-shards", "4"]))
     assert ours == want
 
 
-def test_table_shards_long_reads(dbfile):
-    ours = _query(dbfile, [f"{DATA}/reads_long.fa", "-precision",
-                           "-ground-truth", "-tophits",
-                           "-table-shards", "2"])
-    assert ours == _golden("classified_long_fa.txt")
+def test_table_shards_long_reads(cli, dbfile, multi_device):
+    ours = G.query(cli, dbfile, [f"{G.DATA}/reads_long.fa", "-precision",
+                                 "-ground-truth", "-tophits",
+                                 "-table-shards", "2"])
+    assert ours == G.golden("classified_long_fa.txt")
 
 
-def test_info_config_parity(dbfile):
-    """`info <db>` must be byte-identical to the reference binary's
-    output on the same fixture DB (golden/info_basic.txt, produced by
-    make_goldens.sh; reference: show_database_config,
-    src/mode_info.cpp:57-67)."""
-    r = _run(["info", dbfile])
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
-    with open(os.path.join(GOLD, "info_basic.txt")) as f:
-        want = f.read().splitlines()
-    assert r.stdout.decode().splitlines() == want
+def test_info_config_parity(cli, dbfile):
+    G.check_info(cli, dbfile)
 
 
 # --- 64-bit kmer config (k = 18): goldens from the reference binary
 # compiled with -DMC_KMER_TYPE=uint64_t (see make_goldens.sh) ----------
 @pytest.fixture(scope="module")
-def dbfile_k18(tmp_path_factory):
+def dbfile_k18(cli, tmp_path_factory):
     db = str(tmp_path_factory.mktemp("db18") / "testdb18")
-    r = _run(["build", db, f"{DATA}/genomes.fa",
-              "-taxonomy", f"{DATA}/taxonomy", "-parts", "1",
-              "-kmerlen", "18"])
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    G.build(cli, db, "-kmerlen", "18")
     return db
 
 
-@pytest.mark.parametrize("golden,args", [
-    ("k18_single.txt", ["reads_single.fa", "-mapped-only", "-precision",
-                        "-ground-truth", "-tophits"]),
-    ("k18_long.txt", ["reads_long.fa", "-precision", "-ground-truth",
-                      "-tophits"]),
-    ("k18_pairfiles.txt", ["reads_pair1.fa", "reads_pair2.fa",
-                           "-pairfiles", "-precision", "-tophits"]),
-])
-def test_k18_parity(dbfile_k18, golden, args):
-    args = [f"{DATA}/{a}" if a.startswith("reads_") else a for a in args]
-    got = _query(dbfile_k18, args)
-    assert got == _golden(golden)
+@pytest.mark.parametrize("golden,args", G.K18_CASES)
+def test_k18_parity(cli, dbfile_k18, golden, args):
+    G.check_k18(cli, dbfile_k18, golden, args)
 
 
-def test_k18_info_statistics(dbfile_k18):
-    r = _run(["info", dbfile_k18, "statistics"])
-    assert r.returncode == 0, r.stderr.decode()[-2000:]
-    # "buckets" counts the reference allocator's internal slots
-    # (location lists span multiple chunks in its open-addressing
-    # table) — an implementation detail with no CSR equivalent
-    drop = ("buckets ",)
-    got = [l for l in _strip(r.stdout.decode())
-           if not l.startswith(drop)]
-    want = [l for l in _golden("k18_info_stats.txt")
-            if not l.startswith(drop)]
-    assert got == want
+def test_k18_info_statistics(cli, dbfile_k18):
+    G.check_k18_info(cli, dbfile_k18)
 
 
-def test_reference_db_import_parity():
-    """A database written by the reference binary (binary .meta +
-    .cache0, committed under tests/data/refdb/) loads transparently
-    and classifies with byte-identical output (golden produced by the
-    reference binary querying its own database)."""
-    got = _query(f"{DATA}/refdb/refdb",
-                 [f"{DATA}/reads_single.fa", "-mapped-only",
-                  "-precision", "-ground-truth", "-tophits"])
-    assert got == _golden("refdb_import.txt")
+def test_reference_db_import_parity(cli):
+    G.check_reference_db_import(cli)
 
 
 def test_reference_db_import_contents():
     from metacache_tpu.db.database import Database
-    db = Database.load(f"{DATA}/refdb/refdb")
+    db = Database.load(f"{G.DATA}/refdb/refdb")
     assert db.sketching.kmerlen == 16 and db.sketching.winlen == 127
     assert db.target_count == 6
     assert db.parts[0].num_features == 40016
     assert db.parts[0].num_locations == 40017
     # bucket invariant: locations ascending within each bucket
     p = db.parts[0]
-    import numpy as np
     starts = p.offsets[:-1]
-    ends = p.offsets[1:]
     inner = np.ones(len(p.locations), bool)
     inner[starts] = False
     assert (p.locations[1:][inner[1:]] >=
             p.locations[:-1][inner[1:]]).all()
 
 
-def test_formatting_matrix_144_repl(dbfile):
-    """The reference run_tests' full 144-combo formatting matrix
-    ({base,-lineage,-separate-cols,both} x {,-taxids,-taxids-only} x
-    {,-omit-ranks,-queryids,both} x {,-mapped-only,-separator /%/}),
-    driven through the REPL exactly as test/run_tests:84-143 does.
-    Golden = the reference binary's mapping lines for the same stdin."""
-    with open(os.path.join(DATA, "fmt_matrix.txt")) as f:
-        stdin = f.read().replace("tests/data/", f"{DATA}/")
-    env = dict(os.environ,
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                             ""))
-    if not os.environ.get("MC_GOLDEN_TPU"):
-        env["MC_JAX_PLATFORM"] = "cpu"
-    r = subprocess.run(
-        [sys.executable, "-m", "metacache_tpu", "query", dbfile],
-        input=stdin.encode(), capture_output=True, env=env, cwd=REPO,
-        timeout=1200)
-    assert r.returncode == 0, r.stderr.decode()[-800:]
-    ours = [l for l in r.stdout.decode().splitlines() if "NC_" in l]
-    with open(os.path.join(GOLD, "fmt_matrix.txt")) as f:
-        want = f.read().splitlines()
-    assert len(ours) == len(want), (len(ours), len(want))
-    # first mismatching combo (200 lines per combo) for a useful message
-    for i, (a, b) in enumerate(zip(ours, want)):
-        assert a == b, f"line {i} (combo ~{i // 200}): {a!r} != {b!r}"
+def test_formatting_matrix_144_repl(cli, dbfile):
+    G.check_fmt_matrix_144(cli, dbfile)

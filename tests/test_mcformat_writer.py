@@ -72,7 +72,7 @@ def test_writer_roundtrip_through_our_reader(tmp_path):
 def test_build_ref_format_flag(tmp_path):
     """`build -ref-format` writes a binary .meta our loader detects."""
     from metacache_tpu.db.mcformat import is_reference_db
-    env = dict(os.environ, MC_JAX_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=REPO + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
     db = str(tmp_path / "ourdb")
@@ -116,7 +116,7 @@ def test_reference_binary_queries_our_build(tmp_path):
     """STRONGEST oracle: a database built BY THIS FRAMEWORK (sketch,
     table, taxonomy — the full build path) and written in reference
     format classifies byte-identically under the reference binary."""
-    env = dict(os.environ, MC_JAX_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=REPO + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
     db = str(tmp_path / "ourdb")

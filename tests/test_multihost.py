@@ -1,7 +1,8 @@
 """Multi-HOST dryrun as a test: 2 jax.distributed processes x 2 virtual
 CPU devices each, running the sharded row-layout query step over a
 process-spanning ("data", "table") mesh — the data axis crosses the
-process boundary (DCN), the table axis stays within a process (ICI).
+process boundary (the network), the table axis stays within a process
+(NVLink on a GPU host).
 Each worker verifies its row range against a single-device run
 (metacache_tpu/parallel/multihost_dryrun.py prints MULTIHOST_OK).
 """

@@ -32,7 +32,7 @@ def _run(args, native_fmt: str):
     env = dict(os.environ,
                PYTHONPATH=REPO + os.pathsep +
                os.environ.get("PYTHONPATH", ""),
-               MC_JAX_PLATFORM="cpu",
+               JAX_PLATFORMS="cpu",
                MC_NATIVE_FMT=native_fmt)
     return subprocess.run([sys.executable, "-m", "metacache_tpu"] + args,
                           capture_output=True, env=env, cwd=REPO,

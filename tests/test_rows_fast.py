@@ -278,7 +278,6 @@ def test_escalation_summary_parity(tmp_path, monkeypatch):
                                                map_queries_to_targets)
     from metacache_tpu.db.build import BuildOptions, build_database
     monkeypatch.setenv("MC_SCAN_K", "2")
-    monkeypatch.setenv("MC_FUSED_CANDIDATES", "1")
     monkeypatch.setenv("MC_DENSE_LIMIT", "1")
     rng = np.random.default_rng(3)
     b2a = np.frombuffer(b"ACGT", np.uint8)
@@ -430,7 +429,7 @@ def test_redo_scan_matches_full_scan():
     toj = jnp.asarray(ft.offsets.astype(np.int32))
     kw = dict(sketchlen=16, slots_per_feature=spf, max_candidates=2,
               prefix_bits=bits, dense=dense, pack_bits=wbits,
-              walk_elems=32, fast_top2=True, fused_candidates=False)
+              walk_elems=32, fast_top2=True)
     ref = np.asarray(query_step_rows_scan(
         jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(mwir),
         tfj, toj, *args, k=16, windows_per_query=1, prefix_steps=0,
@@ -512,7 +511,7 @@ def test_fused_escalation_scan_matches_separate():
     toj = jnp.asarray(ft.offsets.astype(np.int32))
     kw = dict(sketchlen=16, slots_per_feature=spf, max_candidates=2,
               prefix_bits=bits, dense=dense, pack_bits=wbits,
-              walk_elems=32, fast_top2=True, fused_candidates=False)
+              walk_elems=32, fast_top2=True)
     cls1, over, fk, ik = query_step_rows_scan_head(
         jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(mwir),
         tfj, toj, *args, k=16, prefetch=True, return_feats=True, **kw)
@@ -559,7 +558,6 @@ def test_paired_escalation_summary_parity(tmp_path, monkeypatch):
                                                map_queries_to_targets)
     from metacache_tpu.db.build import BuildOptions, build_database
     monkeypatch.setenv("MC_SCAN_K", "2")
-    monkeypatch.setenv("MC_FUSED_CANDIDATES", "1")
     monkeypatch.setenv("MC_DENSE_LIMIT", "1")
     rng = np.random.default_rng(4)
     b2a = np.frombuffer(b"ACGT", np.uint8)
